@@ -1,4 +1,4 @@
-"""pyaudiorestoration_tpu: a TPU-native audio-restoration framework.
+"""pyaudiorestoration_tpu: a JAX audio-restoration framework.
 
 Headless, jit-compiled, shard-aware rebuild of the capabilities of
 HENDRIX-ZT2/pyaudiorestoration (see SURVEY.md for the reference analysis,
@@ -8,8 +8,8 @@ Subpackages:
     ops        device DSP primitives (STFT, xcorr, filters, resampler, HPSS)
     models     trackers, marker/master-curve model, spectra, visualization
     pipelines  one module per restoration tool
-    parallel   (files, time) device-mesh sharding with ICI halo exchange
-    kernels    Pallas TPU kernels
+    parallel   (files, time) device-mesh sharding with halo exchange
+    kernels    the Pallas (Triton-route) sinc kernel for the GPU
     utils      native audio I/O, project files, cache, undo, streaming
 """
 

@@ -2,8 +2,8 @@
 
 The reference plays audio through Qt (`AudioWidget`, util/snd.py:13-147) with
 a 25 Hz wall-clock playback cursor thread (`CursorUpdater`,
-util/qt_threads.py:38-68).  TPU hosts are headless, so the TPU-native
-equivalent is a self-contained HTML page: native ``<audio>`` transport
+util/qt_threads.py:38-68).  Accelerator hosts are headless, so the
+equivalent here is a self-contained HTML page: native ``<audio>`` transport
 (play/pause/seek/volume — snd.py's whole surface), a spectrogram strip with
 a playback cursor driven by ``requestAnimationFrame`` (frame-accurate where
 the reference's thread loop self-describes as "inaccurate"), and optional

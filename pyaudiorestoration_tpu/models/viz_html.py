@@ -2,7 +2,7 @@
 
 The reference's main interactive affordance is the vispy canvas: pan/zoom a
 mel-scaled spectrogram, read time/frequency under the cursor, see marker
-overlays (spectrum.py:224-605, vispy_ext.py:148-199).  On a headless TPU
+overlays (spectrum.py:224-605, vispy_ext.py:148-199).  On a headless accelerator
 deployment there is no Qt/GL stack, so this module renders the spectrogram
 once (device -> dB -> izo/magma colormap -> PNG) and embeds it in a single
 HTML file with ~100 lines of dependency-free JavaScript providing:

@@ -1,4 +1,4 @@
-// audioio: minimal native audio I/O runtime for the TPU audio-restoration framework.
+// audioio: minimal native audio I/O runtime for the JAX audio-restoration framework.
 //
 // Provides WAV (PCM 8/16/24/32, IEEE float32/64) reading, WAV (float32/PCM16)
 // writing, and a self-contained FLAC decoder (constant / verbatim / fixed /

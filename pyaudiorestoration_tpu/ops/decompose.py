@@ -1,10 +1,10 @@
-"""Harmonic/percussive separation (HPSS) and soft masks on TPU.
+"""Harmonic/percussive separation (HPSS) and soft masks on the device.
 
 Reference: util/decompose.py (librosa-derived; Fitzgerald 2010 / Driedger
 2014): median filter along time -> harmonic enhancement, along frequency ->
 percussive, Wiener-exponent soft masks, optional margins yielding a residual.
 
-TPU-first: the median filter is a sliding-window sort on the VPU (gather to
+Device-first: the median filter is a sliding-window sort (gather to
 (..., n, size) windows + ``jnp.sort``), tiled over the orthogonal axis with
 ``lax.map`` to bound the working set.  Everything else is fused elementwise.
 """
@@ -71,7 +71,7 @@ def magphase(D, power=1):
     (decompose.py:152-174).
 
     The phasor is computed as ``D / |D|`` (two real divides) rather than
-    ``exp(1j*angle)`` — complex transcendentals are unimplemented on TPU.
+    ``exp(1j*angle)`` — it avoids complex transcendentals, which not every XLA backend implements.
     """
     D = jnp.asarray(D)
     mag = jnp.abs(D)

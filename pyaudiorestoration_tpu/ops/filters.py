@@ -1,13 +1,13 @@
-"""Zero-phase IIR filtering on TPU.
+"""Zero-phase IIR filtering on the device.
 
 Reference semantics: util/filters.py:7-37 — Butterworth low/high/band-pass
 selected by which cutoffs are in (0, nyquist), applied forward-backward
 (``sosfiltfilt``), plus a cumsum moving average.
 
-TPU-first design: the sequential biquad recurrence is rewritten as an
+Device-first design: the sequential biquad recurrence is rewritten as an
 *associative scan* over 2x2 state-transition matrices (Direct Form II
-transposed state space), so the whole filter runs as a parallel prefix on the
-VPU instead of a per-sample loop.  Coefficient design and initial conditions
+transposed state space), so the whole filter runs as a parallel prefix
+instead of a per-sample loop.  Coefficient design and initial conditions
 come from scipy on the host (static per filter spec).
 
 A ``backend="host"`` escape hatch calls scipy directly.  Production call
@@ -66,8 +66,8 @@ def _sos_section_scan(x, b0, b1, b2, a1, a2, zi):
     cs = (x[..., None] * B)[..., None]
     As = jnp.broadcast_to(A, cs.shape[:-2] + (2, 2))
 
-    # full float32 on the tiny 2x2 products: TPU matmul defaults to bfloat16,
-    # whose ~0.4% per-step error compounds MULTIPLICATIVELY over the ~1e5
+    # full float32 on the tiny 2x2 products: default matmul precision may be
+    # bfloat16 or TF32, whose per-step error compounds MULTIPLICATIVELY over the ~1e5
     # prefix compositions and overflows to inf/NaN for narrowband filters
     hi = jax.lax.Precision.HIGHEST
 
@@ -96,7 +96,7 @@ def _sos_section_scan(x, b0, b1, b2, a1, a2, zi):
 # (>100 dB to scipy's float64 sosfiltfilt on narrowband cascades — the
 # plain scan bottoms out near 55 dB).  Unlike a full double-float scan
 # (whose 12-leaf compensated combine blew XLA compile time 40x), this
-# reuses the plain scan's compiled structure: ~3x compile, ~3x VPU work.
+# reuses the plain scan's compiled structure: ~3x compile, ~3x the elementwise work.
 # Coefficients enter the residual as (hi, lo) float32 pairs of their
 # float64 values, so the refined target IS the float64-coefficient filter.
 # ---------------------------------------------------------------------------
@@ -303,7 +303,7 @@ def sosfiltfilt(sos, x, padlen=None, compensated=True):
     refinement passes (count auto-sized from the cascade's pole radii) so
     the result matches scipy's float64 ``sosfiltfilt`` to >100 dB on
     float64-less hardware.  ``False`` keeps the single plain f32 scan
-    (~38-55 dB on narrowband cascades, proportionally fewer VPU ops)."""
+    (~38-55 dB on narrowband cascades, proportionally fewer elementwise ops)."""
     sos = np.asarray(sos, dtype=np.float64)
     x = jnp.asarray(x, jnp.float32)
     if padlen is None:

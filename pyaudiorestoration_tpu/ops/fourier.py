@@ -1,19 +1,19 @@
-"""STFT / iSTFT engine on TPU via JAX/XLA.
+"""STFT / iSTFT engine on the device via JAX/XLA.
 
 Implements the reference's spectral conventions (util/fourier.py:37-157,
 314-437): ``blackmanharris`` default window, reflect-pad centering, hop
 ``step``, zero-padding factor applied to the FFT length only, and a global
 ``1/sqrt(n_fft)`` normalization so volume is constant across FFT sizes.
 
-TPU-first design notes
-----------------------
+Device-first design notes
+-------------------------
 * Framing is one XLA gather over a static index matrix — no Python loop over
   frames (the reference needs a numba kernel for this, fourier.py:160-166).
 * Overlap-add for the inverse transform is expressed as ``n_fft//hop`` static
   shifted adds (a pure reshape/pad/sum dataflow) whenever ``hop`` divides
   ``n_fft`` — the common case, since the GUI exposes overlap as a power of
-  two (widgets.py:325-406).  This avoids scatter-adds, which serialize badly
-  on TPU.  A scatter fallback covers arbitrary hops.
+  two (widgets.py:325-406).  This avoids scatter-adds, which serialize on
+  colliding writes.  A scatter fallback covers arbitrary hops.
 * Everything is jit-compiled with static shape parameters; batches of
   channels go through ``vmap``.
 """

@@ -107,8 +107,7 @@ def restore_batch_files_fused(paths, f0_hz=None, tolerance_st: float = 1.0,
                               fft_size: int = 4096, fft_overlap: int = 8,
                               zeropad: int = 2, sinc_quality: int = 50,
                               drift: int = 32, n_files_axis=None,
-                              out_suffix="_res", backend: str = "auto",
-                              _wrap_bits: int = 32):
+                              out_suffix="_res", _wrap_bits: int = 32):
     """End-to-end FAST-TIER batch restore over the mesh: read files ->
     ('files','time') mesh -> ``restore_fused_sharded`` (banded-DFT tracking,
     exact dithered plan, quality-taps banded sinc — the same kernels as the
@@ -123,8 +122,7 @@ def restore_batch_files_fused(paths, f0_hz=None, tolerance_st: float = 1.0,
     """
     import jax
 
-    from ..pipelines.respeeder_device import (_band_limits, _probe_f0,
-                                              _sinc_backend)
+    from ..pipelines.respeeder_device import _band_limits, _probe_f0
 
     step = fft_size // fft_overlap
     n_dev = len(jax.devices())
@@ -133,7 +131,6 @@ def restore_batch_files_fused(paths, f0_hz=None, tolerance_st: float = 1.0,
         n_files_axis -= 1
     mesh = pmesh.make_mesh(n_files=n_files_axis, n_time=n_dev // n_files_axis)
     n_time = mesh.shape["time"]
-    backend = {"auto": _sinc_backend("auto")}.get(backend, backend)
     out_paths = []
     for i in range(0, len(paths), n_files_axis):
         group = paths[i:i + n_files_axis]
@@ -151,7 +148,7 @@ def restore_batch_files_fused(paths, f0_hz=None, tolerance_st: float = 1.0,
         padded, nn, bi, bf = sharded.restore_fused_sharded(
             mesh, xs, NL, NU, fft_size, step, zeropad,
             max_n=int(step * 1.25), nt=int(sinc_quality), drift=drift,
-            backend=backend, lengths=lengths, wrap_bits=_wrap_bits)
+            lengths=lengths, wrap_bits=_wrap_bits)
         padded = np.asarray(padded)
         nn = np.asarray(nn)
         bi, bf = np.asarray(bi), np.asarray(bf)
@@ -171,7 +168,7 @@ def restore_file_sharded(path, f0_hz=None, tolerance_st: float = 1.0,
                          fft_size: int = 4096, fft_overlap: int = 8,
                          zeropad: int = 2, sinc_quality: int = 50,
                          drift: int = 32, out_suffix="_res",
-                         backend: str = "auto", _wrap_bits: int = 32):
+                         _wrap_bits: int = 32):
     """ALL channels of one recording through the mesh fast tier with the
     reference's shared-curve export contract (resampling.py:211-231):
     channels ride the ``files`` axis, ``share_curve=True`` broadcasts
@@ -179,8 +176,7 @@ def restore_file_sharded(path, f0_hz=None, tolerance_st: float = 1.0,
     recording.  Writes one multi-channel ``*_res`` file."""
     import jax
 
-    from ..pipelines.respeeder_device import (_band_limits, _probe_f0,
-                                              _sinc_backend)
+    from ..pipelines.respeeder_device import _band_limits, _probe_f0
 
     step = fft_size // fft_overlap
     sig, sr, C = audio_io.read_file(path)
@@ -201,11 +197,10 @@ def restore_file_sharded(path, f0_hz=None, tolerance_st: float = 1.0,
     F = n // step + 1
     NL = np.full(F, NLv, np.int32)
     NU = np.full(F, NUv, np.int32)
-    backend = {"auto": _sinc_backend("auto")}.get(backend, backend)
     xs = pmesh.shard_time_batch(mesh, batch)
     padded, nn, bi, bf = sharded.restore_fused_sharded(
         mesh, xs, NL, NU, fft_size, step, zeropad, max_n=int(step * 1.25),
-        nt=int(sinc_quality), drift=drift, backend=backend, share_curve=True,
+        nt=int(sinc_quality), drift=drift, share_curve=True,
         wrap_bits=_wrap_bits)
     padded = np.asarray(padded)
     counts = np.asarray(nn)[0]

@@ -3,9 +3,10 @@
 Mesh axes (SURVEY.md §2.4):
 * ``files`` — data parallelism over a batch of recordings (the reference's
   sequential batch loops, resampling.py:168, dropouts_gui.py:121-135).
-* ``time``  — context/sequence parallelism along the recording, the TPU-native
+* ``time``  — context/sequence parallelism along the recording, the device-mesh
   version of the reference's blockwise-overlap streaming
-  (experiments/pyrespeeder_cmd.py:16-49).  Halos ride ICI via ``ppermute``.
+  (experiments/pyrespeeder_cmd.py:16-49).  Halos move between devices via
+  ``ppermute``.
 """
 
 from __future__ import annotations

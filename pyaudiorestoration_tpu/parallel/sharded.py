@@ -1,8 +1,8 @@
-"""Time-sharded STFT / iSTFT / restoration step with ICI halo exchange.
+"""Time-sharded STFT / iSTFT / restoration step with halo exchange between devices.
 
 The reference's answer to long recordings is blockwise streaming with
 ``overlap*hop`` halos and boundary trimming (experiments/pyrespeeder_cmd.py:
-16-49); on TPU the time axis shards across devices instead, and the halos are
+16-49); here the time axis shards across devices instead, and the halos are
 ``jax.lax.ppermute`` neighbor exchanges inside ``shard_map``:
 
 * STFT: a frame straddling a shard boundary needs ``n_fft - step`` samples
@@ -380,14 +380,14 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
                           zeropad: int = 1, max_n: int = None, nt: int = 50,
                           drift: int = 32, window_name: str = "blackmanharris",
                           band=None, speed_curve=None, base_slack: int = 16,
-                          chunk_frames: int = 4096, backend: str = "xla",
-                          share_curve: bool = False, lengths=None,
-                          wrap_bits: int = 32):
+                          chunk_frames: int = 4096, share_curve: bool = False,
+                          lengths=None, wrap_bits: int = 32,
+                          interpret: bool = False):
     """The single-chip fused restoration step on a ('files', 'time') mesh.
 
     Same kernels and conventions as ``respeeder_device.restore_fused_device``
     (docstring there; reference semantics resampling.py:93-137, 162-240) —
-    banded-DFT MXU peak tracking, exact split-cumsum dithered position plan,
+    banded-DFT matmul peak tracking, exact split-cumsum dithered position plan,
     and the gather-free banded shift-MAC sinc with quality taps — with the
     three global couplings becoming collectives:
 
@@ -435,10 +435,11 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
     with ``parallel.batch.load_batch(..., reflect_tail=n_fft)``); tracked
     masking requires lengths < 2**31 (the dense tier's own bound).
     """
+    from ..kernels.sinc_triton import sinc_rows
     from ..pipelines.respeeder_device import (
-        banded_refined_chunk, exact_log_center, inv_count_limbs,
-        log_center_for_band, quantized_log_sums, segment_advances,
-        segment_grids, sinc_shift_mac)
+        _use_sinc_kernel, banded_refined_chunk, exact_log_center,
+        inv_count_limbs, log_center_for_band, quantized_log_sums,
+        segment_advances, segment_grids, sinc_shift_mac)
 
     n_time = mesh.shape["time"]
     batch, total = x.shape
@@ -612,19 +613,17 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
         L = max_n + 2 * U
         anchors = base_int - idx * S + Hl  # window anchors in ext coords
 
-        if backend.startswith("pallas"):
-            # run the SAME Mosaic DMA kernel as the single-chip tier on the
-            # halo-extended local signal (shard-local windows, so the kernel
-            # applies unchanged); pallas_call has no vmap rule -> static
-            # file loop (B_local is 1-2 on real meshes)
-            from ..kernels.sinc_pallas import sinc_banded_pallas_dma_segments
+        if _use_sinc_kernel(interpret):
+            # the single-chip tier's kernel on the halo-extended local signal
+            # (windows are shard-local, so it applies unchanged), one call
+            # per local file (B_local is 1-2 on real meshes)
+            def one_file(b):
+                bs, rel, _ = segment_grids(s_lo[b], s_hi[b], nn[b],
+                                           base_frac[b], max_n)
+                return sinc_rows(ext[b], anchors[b] - U, bs, rel, nn[b],
+                                 nt=nt, drift=drift, interpret=interpret)
 
-            padded = jnp.stack([
-                sinc_banded_pallas_dma_segments(
-                    ext[b], s_lo[b], s_hi[b], nn[b], anchors[b], base_frac[b],
-                    max_n, nt, drift,
-                    interpret=backend == "pallas_interpret")
-                for b in range(ext.shape[0])])
+            padded = jnp.stack([one_file(b) for b in range(ext.shape[0])])
         else:
             def one_file(ext1, sl, sh, nn1, st1, bf1):
                 bs, rel, in_seg = segment_grids(sl, sh, nn1, bf1, max_n)
@@ -660,8 +659,8 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
     # whole step each time (measured 5.9 s/call vs 60 ms warm).
     key = (_mesh_key(mesh), batch, total, n_fft, step,
            zeropad, max_n, nt, drift, window_name, (lo, hi),
-           speed_curve is not None, base_slack, chunk_frames, backend,
-           share_curve, lengths is not None, wrap_bits)
+           speed_curve is not None, base_slack, chunk_frames, share_curve,
+           lengths is not None, wrap_bits, _use_sinc_kernel(interpret))
     return _cached_exec(("fused",) + key, lambda: jax.jit(shard_map(
         fn, mesh=mesh,
         in_specs=tuple(in_specs),
@@ -932,7 +931,7 @@ def restore_step(mesh: Mesh, x, f0_hz: float, sr: int, n_fft: int = 512,
             return g0 * (1 - frac) + g1 * frac
         # windowed-sinc (round 3): segment-local anchors bound the in-segment
         # drift (positions advance ~1/speed per output), so the quality-taps
-        # banded shift-MAC replaces the old scalar-rate per-tap gather — the
+        # banded shift-MAC replaces the old per-tap gather — the
         # same rebuild as lag_resample_sharded; reference tap conventions
         # unchanged (2*nt taps, hann taper, fc = min(speed, 1))
         from ..pipelines.respeeder_device import sinc_shift_mac

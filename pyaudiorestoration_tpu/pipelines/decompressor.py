@@ -5,7 +5,7 @@ Windowed-RMS envelopes of source and reference (band-passed), log-domain
 level matching, optional per-window xcorr re-sync, gain factors clipped to
 [0, 2], interpolated to sample rate and applied.
 
-TPU-first: the windowed RMS is one framed reduction on device; the optional
+Device-first: the windowed RMS is one framed reduction on device; the optional
 sync pass is a batched xcorr.
 """
 

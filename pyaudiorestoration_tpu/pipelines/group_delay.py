@@ -32,10 +32,9 @@ def _pairwise(it):
 def _bandify(x, H, n: int, n_fft: int):
     """Apply a stack of zero-phase band responses H (num_bands, n_rfft) to x.
 
-    ``n_fft`` must be a power of two >= n: XLA:TPU lowers awkward FFT
+    ``n_fft`` must be a power of two >= n: XLA may lower awkward FFT
     lengths (e.g. 66150 = 3 s at 22.05 kHz) to a DFT-style matmul that
-    materializes an n x n matrix — 17 GB at 3 s, found OOMing on the real
-    device by the CLI smoke harness.  Zero-padding to a radix-2 length both
+    materializes an n x n matrix (17 GB at 3 s).  Zero-padding to a radix-2 length both
     avoids that and removes circular wrap-around from the band filtering.
     """
     X = jnp.fft.rfft(x, n=n_fft)

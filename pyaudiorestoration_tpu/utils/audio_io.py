@@ -5,41 +5,75 @@ write_file, /root/reference/util/io_ops.py:7-23) but is built on a first-party
 C++ WAV+FLAC codec (``../native/audioio.cpp``) instead of libsndfile.
 
 The native library is compiled on demand with ``make`` the first time it is
-needed; a pure-Python WAV fallback (via :mod:`scipy.io.wavfile`) covers
+needed on each host, into a directory keyed by the sources and the host's
+CPU; a pure-Python WAV fallback (via :mod:`scipy.io.wavfile`) covers
 environments without a C++ toolchain (FLAC requires the native library).
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "native")
-# AUDIOIO_LIB overrides the codec library path (e.g. an ASAN-instrumented
-# build for memory diagnostics); default is the in-tree make target.
-_LIB_PATH = os.environ.get("AUDIOIO_LIB") or os.path.join(_NATIVE_DIR, "libaudioio.so")
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _build_native() -> bool:
+def _host_build_key() -> str:
+    """Digest of what the native build depends on: the committed sources
+    and this host's CPU (the Makefile compiles with ``-march=native``, so a
+    library built on another machine must never load here)."""
+    h = hashlib.sha256()
+    for name in ("audioio.cpp", "Makefile"):
+        with open(os.path.join(_NATIVE_DIR, name), "rb") as f:
+            h.update(f.read())
+    h.update(platform.machine().encode())
+    try:
+        with open("/proc/cpuinfo") as f:
+            h.update("".join(sorted({ln for ln in f if ln.startswith(
+                ("model name", "flags", "vendor_id"))})).encode())
+    except OSError:
+        h.update(platform.processor().encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path() -> str:
+    """AUDIOIO_LIB overrides the codec library path (e.g. an ASAN-
+    instrumented build for memory diagnostics); otherwise the library lives
+    in ``native/build/<host key>/`` (ignored by git)."""
+    return os.environ.get("AUDIOIO_LIB") or os.path.join(
+        _NATIVE_DIR, "build", _host_build_key(), "libaudioio.so")
+
+
+def _build_native(path: str) -> bool:
+    """Build the library into ``path`` through a private temporary name, so
+    concurrent builders (test workers) never load a half-written file."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
     try:
         # bounded: a stuck toolchain/filesystem must fail the build, not
         # hang every caller (the doctor health check relies on this)
         subprocess.run(
-            ["make", "-s"], cwd=_NATIVE_DIR, check=True,
+            ["make", "-s", f"OUT={tmp}"], cwd=_NATIVE_DIR, check=True,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, timeout=300,
         )
-        return os.path.isfile(_LIB_PATH)
-    except Exception:
+        os.replace(tmp, path)
+        return True
+    except (OSError, subprocess.SubprocessError):
         logging.exception("Building native audioio failed")
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _get_lib():
@@ -50,9 +84,10 @@ def _get_lib():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        if not os.path.isfile(_LIB_PATH) and not _build_native():
+        path = _lib_path()
+        if not os.path.isfile(path) and not _build_native(path):
             return None
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(path)
         lib.audioio_open.restype = ctypes.c_void_p
         lib.audioio_open.argtypes = [ctypes.c_char_p]
         lib.audioio_sample_rate.restype = ctypes.c_int

@@ -1,8 +1,8 @@
-"""Single-core FLAC codec benchmark + speed-of-light context (VERDICT r04 #6).
+"""Single-core FLAC codec benchmark + speed-of-light context.
 
 Times the first-party C++ FLAC encoder/decoder (native/audioio.cpp) on the
-flagship take shape — 192 kHz stereo, tiled from the reference flutter
-sample to ~34 s — and prints one JSON object with:
+flagship take shape — 192 kHz stereo, the seeded pilot-tone take of
+``utils/synth.wow_take``, ~34 s — and prints one JSON object with:
 
   encode_s / decode_s      best-of-N wall time for the full file
   enc_msps / dec_msps      million interleaved samples per second
@@ -14,7 +14,7 @@ sample to ~34 s — and prints one JSON object with:
 
 The reference interchanges FLAC via libsndfile (io_ops.py:7-23); this repo's
 codec must carry the same role, so its single-core ceiling bounds the
-FLAC-in/FLAC-out file-to-file RTF (docs/BENCHMARKS.md "FLAC north star").
+FLAC-in/FLAC-out file-to-file RTF.
 
 Usage: python scripts/flac_bench.py [--seconds 34] [--repeats 5] [--out -]
 """
@@ -31,9 +31,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 os.environ.setdefault("AUDIOIO_NO_IDX", "1")
 
-SAMPLES = "/root/reference/samples"
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=34.0)
@@ -42,21 +39,14 @@ def main():
                     help="FLAC preset: 0 fixed-only (fast), 1 +LPC (small)")
     ap.add_argument("--out", default="-")
     ap.add_argument("--channels", type=int, default=2, choices=(1, 2),
-                    help="take shape; 2 matches the flagship stereo take "
-                         "(the source sample is mono — ch2 duplicates it "
-                         "at 0.8 gain like scripts/e2e_file_proof.py)")
+                    help="take shape; 2 matches the flagship stereo take")
     args = ap.parse_args()
 
     from pyaudiorestoration_tpu.utils import audio_io
+    from pyaudiorestoration_tpu.utils.synth import wow_take
 
-    src = os.path.join(SAMPLES, "flutter_192.flac")
-    sig, sr, _ = audio_io.read_file(src)
-    reps = max(1, int(np.ceil(args.seconds * sr / len(sig))))
-    mono = np.tile(sig[:, 0], reps)
-    if args.channels == 2:
-        take = np.stack([mono, mono * 0.8], axis=-1).astype(np.float32)
-    else:
-        take = mono[:, None].astype(np.float32)
+    sr = 192000
+    take, _ = wow_take(args.seconds, sr, args.channels, seed=0)
     audio_s = len(take) / sr
     n_interleaved = take.size
 

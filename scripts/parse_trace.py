@@ -1,10 +1,10 @@
 """Summarize a jax.profiler trace: device-lane op durations by name.
 
-Usage: python scripts/parse_trace.py docs/traces/fused_r03 [top_n]
+Usage: python scripts/parse_trace.py <profile_dir> [top_n]
 
-Finds the trace.json.gz under the given profile dir, sums complete events on
-TPU/device tracks, and prints the top ops plus the total — the numbers the
-BENCHMARKS.md device-time tables cite.
+Finds the newest trace.json.gz under a ``jax.profiler`` profile dir, sums
+complete events on the GPU's device lanes (processes named
+``/device:GPU:<n>``), and prints the top ops plus the total device time.
 """
 
 import collections
@@ -24,13 +24,13 @@ def load_trace(root):
 
 def device_events(trace):
     """Yield (name, duration_us) for complete events on device lanes."""
-    # map pid -> process name to find TPU lanes
+    # map pid -> process name to find the device lanes
     proc = {}
     for ev in trace["traceEvents"]:
         if ev.get("ph") == "M" and ev.get("name") == "process_name":
             proc[ev["pid"]] = ev["args"].get("name", "")
     device_pids = {pid for pid, name in proc.items()
-                   if "TPU" in name or "/device" in name.lower()}
+                   if name.startswith("/device:")}
     for ev in trace["traceEvents"]:
         if ev.get("ph") == "X" and ev.get("pid") in device_pids:
             yield ev["name"], float(ev.get("dur", 0.0))

@@ -8,7 +8,7 @@ decorator on pure-numpy kernels), ``soundfile`` (file I/O), and ``pyfftw``
 numerics, so we stub the first two — an identity ``@jit`` and a soundfile
 facade over our native codec — put ``/root/reference`` on ``sys.path`` and
 import the reference's ``util`` modules unmodified.  Tests then compare our
-TPU-native implementations against outputs computed by the reference's real
+JAX implementations against outputs computed by the reference's real
 code (wow_detection.py, fourier.py, resampling.py, decompose.py, ...).
 
 Everything degrades to a pytest skip when the reference tree is absent, so

@@ -149,8 +149,8 @@ def test_cli_doctor_no_device(capsys):
 
 
 def test_doctor_cpu_probe_subprocess():
-    """The bounded subprocess probe reports a healthy CPU platform (the
-    wedged-relay path returns status='timeout' instead of hanging)."""
+    """The bounded subprocess probe reports a healthy CPU platform (a
+    wedged runtime returns status='timeout' instead of hanging)."""
     from pyaudiorestoration_tpu.utils.doctor import _probe_devices
 
     status, info = _probe_devices(90.0, platform="cpu")
@@ -168,7 +168,7 @@ def test_doctor_gates_on_wrong_result(monkeypatch):
         if platform == "cpu":
             return "ok", {"tiny_op_ok": True, "device_count": 1}
         return "ok", {"tiny_op_ok": False, "device_count": 1,
-                      "platform": "tpu"}
+                      "platform": "gpu"}
 
     monkeypatch.setattr(doctor, "_probe_devices", fake_probe)
     rep = doctor.run_doctor(device_timeout_s=5.0)

@@ -3,7 +3,7 @@
 Round-1 VERDICT (Weak #7) flagged that parity was proven only against in-test
 transcriptions.  ``reference_shim`` stubs numba/soundfile (packaging-only
 dependencies) and imports the unmodified reference modules from
-``/root/reference``, so every assertion below compares our TPU-native
+``/root/reference``, so every assertion below compares our JAX
 implementation against output produced by the reference's real Python code:
 
 - fourier.stft / fourier.istft          (fourier.py:37-75, 314-437)

@@ -187,8 +187,8 @@ def test_process_heuristic_degenerate_band_is_finite(tmp_path, rng):
 
 def test_narrowband_iir_finite_on_long_signal(rng):
     """Narrow low-frequency band-pass over ~1e5 samples: the scan's 2x2
-    prefix products must run at full float32 precision (on TPU the default
-    bf16 matmul error compounds multiplicatively and overflows to NaN)."""
+    prefix products must run at full float32 precision (a bf16 or TF32
+    default matmul's error compounds multiplicatively and overflows to NaN)."""
     from pyaudiorestoration_tpu.ops import filters
 
     x = rng.standard_normal(120000).astype(np.float32)

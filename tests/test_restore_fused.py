@@ -97,7 +97,7 @@ def test_fused_matches_hybrid():
 
 
 def test_banded_dft_matches_full_fft_tracking():
-    """The MXU banded-DFT tracking path must agree with the full-FFT path."""
+    """The banded-DFT matmul tracking path must agree with the full-FFT path."""
     import jax.numpy as jnp
 
     from pyaudiorestoration_tpu.pipelines import respeeder_device as rdev
@@ -122,9 +122,9 @@ def test_banded_dft_matches_full_fft_tracking():
 
 
 def test_restore_fused_takes_kernel_shape_is_batch_invariant():
-    """Round-3 compile-once contract (VERDICT #3): the flattened-takes sinc
-    kernel runs through fixed seg_tile chunks, so the compiled inner kernel
-    (Mosaic program on TPU, XLA map body on CPU) depends only on
+    """Compile-once contract of the XLA sinc stage: the flattened-takes sinc
+    runs through fixed seg_tile chunks, so the compiled inner map body
+    depends only on
     (seg_tile, max_n, nt, drift) — NOT on the batch size.  Assert by
     intercepting the segments-level kernel call for B=2 and B=5 and checking
     the chunked shapes it receives are identical."""
