@@ -45,18 +45,24 @@ FFT, OVERLAP, ZP, NT, DRIFT = 4096, 8, 2, 50, 16
 HOP = FFT // OVERLAP
 TAKE_FRACTIONS = (1.0, 0.81, 0.59, 0.37)  # respeed-batch: unequal lengths
 TOL = 2e-5  # float32 kernel-vs-reference envelope, as in the CPU tests
-# (d) and --multi tolerances.  XLA:GPU and XLA:CPU (and two GPU programs of
-# different shapes) may sum in different orders, so a tracked speed can
-# differ in its last bits; a differing bit can flip a dithered segment count
-# (one output sample moves to the neighbouring segment), and the output
-# positions, an integral of the curve over the whole take, drift by a
-# fraction of a sample.  The result is held to what a listener gets: the
-# compacted take's timing and waveform.
+# (d) tolerances.  XLA:GPU and XLA:CPU (and two GPU programs of different
+# shapes) may sum in different orders, so a tracked speed can differ in its
+# last bits; a differing bit can flip a dithered segment count (one output
+# sample moves to the neighbouring segment), and the output positions, an
+# integral of the curve over the whole take, drift by a fraction of a
+# sample.  The result is held to what a listener gets: the compacted take's
+# timing and waveform.  Each limit is set from the card's readings (PERF.md).
 SPEED_REL_TOL = 1e-5  # tracked speed curve, GPU vs CPU
 POS_DRIFT_TOL = 0.5   # output positions, GPU vs CPU, in input samples
-# a restored take against its reference restore: on the 3150 Hz pilot at
+# restored channel, GPU vs CPU: read 40.0 dB.  On the 3150 Hz pilot at
 # 192 kHz, 30 dB is a timing error of about 0.3 samples, 20 dB of one sample
-MIN_SNR_DB = 30.0
+GPU_CPU_MIN_SNR_DB = 30.0
+# a take inside restore_fused_takes against the same take alone, both on the
+# GPU: read 86.1 dB.  One wrong segment in the take would read below 40 dB
+BATCH_MIN_SNR_DB = 70.0
+# --multi compares with no tolerance: the sharded tiers promise the solo
+# restore bit for bit (docs/ARCHITECTURE.md section 13), and four cards
+# showed it
 LEN_REL_TOL = 0.01    # output length against the reference restore
 
 
@@ -196,18 +202,25 @@ def compacted(padded, counts=None):
     return sharded.compact_padded_host(p, np.asarray(counts))
 
 
-def compare_outputs(name, y, ref):
-    """A restored take against its reference restore, sample by sample."""
+def compare_outputs(name, y, ref, min_snr_db=None):
+    """A restored take against its reference restore, sample by sample:
+    held to ``min_snr_db`` and the length tolerance, or, without a limit, to
+    bit equality."""
     m = min(len(y), len(ref))
     d = np.asarray(y[:m], np.float64) - np.asarray(ref[:m], np.float64)
     err = float(np.sum(d * d))
     snr = np.inf if err == 0 else 10 * np.log10(
         float(np.sum(np.square(ref[:m], dtype=np.float64))) / err)
+    same = bool(len(y) == len(ref) and err == 0)
+    limit = "bit-identical" if min_snr_db is None else f"{min_snr_db} dB"
     log(f"{name}: {len(y)} samples (reference {len(ref)}), bit-identical "
-        f"{bool(len(y) == len(ref) and err == 0)}, max|d| "
-        f"{float(np.abs(d).max()):.3e}, SNR {snr:.1f} dB (limit {MIN_SNR_DB})")
-    check(snr >= MIN_SNR_DB and abs(len(y) / len(ref) - 1) <= LEN_REL_TOL,
-          f"{name}: drifted from its reference restore")
+        f"{same}, max|d| {float(np.abs(d).max()):.3e}, SNR {snr:.1f} dB "
+        f"(limit {limit})")
+    if min_snr_db is None:
+        check(same, f"{name}: differs from its reference restore")
+    else:
+        check(snr >= min_snr_db and abs(len(y) / len(ref) - 1) <= LEN_REL_TOL,
+              f"{name}: drifted from its reference restore")
 
 
 def phase_gpu_vs_cpu(x, take2):
@@ -248,12 +261,14 @@ def phase_gpu_vs_cpu(x, take2):
     log(f"(d) GPU vs CPU output positions: {len(pg)} vs {len(pc)} samples, "
         f"max |d| {drift:.3e} input samples (limit {POS_DRIFT_TOL})")
     check(drift <= POS_DRIFT_TOL, "GPU output positions drifted from CPU")
-    # channel 0 restored through each backend's own plan: the GPU kernel,
-    # the CPU's XLA shift-MAC
+    # channel 0 restored through each backend's own plan and the same entry
+    # point, which runs the Triton kernel for the GPU-resident arrays and the
+    # XLA shift-MAC for the CPU-resident ones
     y_gpu = rdev.run_banded_sinc(x[0], *gpu, max_n, NT, DRIFT)
-    y_cpu = rdev.sinc_banded_device(x_cpu[0], *cpu, max_n, NT, DRIFT)
+    y_cpu = rdev.run_banded_sinc(x_cpu[0], *cpu, max_n, NT, DRIFT)
+    check(next(iter(y_cpu.devices())).platform == "cpu", "CPU restore moved")
     compare_outputs("(d) GPU vs CPU restore, channel 0", compacted(y_gpu, ng),
-                    compacted(y_cpu, nc))
+                    compacted(y_cpu, nc), GPU_CPU_MIN_SNR_DB)
 
     L2 = len(take2)
     xb = jnp.stack([x[0], jnp.pad(jnp.asarray(take2), (0, x.shape[1] - L2))])
@@ -274,7 +289,7 @@ def phase_gpu_vs_cpu(x, take2):
         f"bit-identical {same_grid}")
     compare_outputs("(d) take in restore_fused_takes vs alone",
                     compacted(np.asarray(batch[1])[:T]),
-                    compacted(solo, n_solo))
+                    compacted(solo, n_solo), BATCH_MIN_SNR_DB)
 
 
 def phase_wall(x, card):

@@ -434,10 +434,13 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
     continuation for >= n_fft//2 samples past their end (build the batch
     with ``parallel.batch.load_batch(..., reflect_tail=n_fft)``); tracked
     masking requires lengths < 2**31 (the dense tier's own bound).
+
+    ``interpret`` (tests) runs the sinc kernel through the Pallas interpreter
+    on any platform; otherwise the kernel runs where the mesh is on GPUs.
     """
     from ..kernels.sinc_triton import sinc_rows
     from ..pipelines.respeeder_device import (
-        _use_sinc_kernel, banded_refined_chunk, exact_log_center,
+        _sinc_by_platform, banded_refined_chunk, exact_log_center,
         inv_count_limbs, log_center_for_band, quantized_log_sums,
         segment_advances, segment_grids, sinc_shift_mac)
 
@@ -613,26 +616,27 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
         L = max_n + 2 * U
         anchors = base_int - idx * S + Hl  # window anchors in ext coords
 
-        if _use_sinc_kernel(interpret):
-            # the single-chip tier's kernel on the halo-extended local signal
-            # (windows are shard-local, so it applies unchanged), one call
-            # per local file (B_local is 1-2 on real meshes)
-            def one_file(b):
-                bs, rel, _ = segment_grids(s_lo[b], s_hi[b], nn[b],
-                                           base_frac[b], max_n)
-                return sinc_rows(ext[b], anchors[b] - U, bs, rel, nn[b],
-                                 nt=nt, drift=drift, interpret=interpret)
+        # the single-chip tier's kernel on the halo-extended local signal
+        # (windows are shard-local, so it applies unchanged), one call per
+        # local file (B_local is 1-2 on real meshes)
+        def kernel_file(b, interp):
+            bs, rel, _ = segment_grids(s_lo[b], s_hi[b], nn[b], base_frac[b],
+                                       max_n)
+            return sinc_rows(ext[b], anchors[b] - U, bs, rel, nn[b], nt=nt,
+                             drift=drift, interpret=interp)
 
-            padded = jnp.stack([one_file(b) for b in range(ext.shape[0])])
-        else:
-            def one_file(ext1, sl, sh, nn1, st1, bf1):
-                bs, rel, in_seg = segment_grids(sl, sh, nn1, bf1, max_n)
-                idx2 = (st1 - U)[:, None] + np.arange(L)[None, :]
-                buf = ext1[jnp.clip(idx2, 0, ext_len - 1)]
-                return sinc_shift_mac(buf, bs, rel, in_seg, max_n, nt, drift)
+        def xla_file(ext1, sl, sh, nn1, st1, bf1):
+            bs, rel, in_seg = segment_grids(sl, sh, nn1, bf1, max_n)
+            idx2 = (st1 - U)[:, None] + np.arange(L)[None, :]
+            buf = ext1[jnp.clip(idx2, 0, ext_len - 1)]
+            return sinc_shift_mac(buf, bs, rel, in_seg, max_n, nt, drift)
 
-            padded = jax.vmap(one_file)(ext, s_lo, s_hi, nn, anchors,
-                                        base_frac)
+        padded = _sinc_by_platform(
+            lambda interp: jnp.stack([kernel_file(b, interp)
+                                      for b in range(ext.shape[0])]),
+            lambda: jax.vmap(xla_file)(ext, s_lo, s_hi, nn, anchors,
+                                       base_frac),
+            interpret)
         if wrap_bits < 32:
             # test hook: wrap the RETURNED plan at a low modulus (see the
             # length contract above) — anchors above already consumed the
@@ -660,7 +664,7 @@ def restore_fused_sharded(mesh: Mesh, x, NL, NU, n_fft: int, step: int,
     key = (_mesh_key(mesh), batch, total, n_fft, step,
            zeropad, max_n, nt, drift, window_name, (lo, hi),
            speed_curve is not None, base_slack, chunk_frames, share_curve,
-           lengths is not None, wrap_bits, _use_sinc_kernel(interpret))
+           lengths is not None, wrap_bits, interpret)
     return _cached_exec(("fused",) + key, lambda: jax.jit(shard_map(
         fn, mesh=mesh,
         in_specs=tuple(in_specs),

@@ -1,6 +1,7 @@
-"""Triton-route sinc kernel: parity in interpreter mode on the CPU, the
-wrapper's lane/row padding, the choice of kernel by platform, and one
-compiled check that runs only where there is a GPU."""
+"""Triton-route sinc kernel: parity in interpreter mode on the CPU (alone,
+in the dense tier and in the take-batch tier), the wrapper's lane/row
+padding, the choice of kernel by platform, and one compiled check that runs
+only where there is a GPU."""
 
 import jax
 import jax.numpy as jnp
@@ -93,14 +94,58 @@ def test_sinc_rows_pads_lanes_and_rows(T, max_n):
     assert not np.any(got[np.arange(max_n)[None, :] >= n[:, None]])
 
 
-@pytest.mark.parametrize("platform,interpret,want", [
-    ("gpu", False, True), ("cpu", False, False), ("cpu", True, True)])
-def test_sinc_kernel_choice_by_platform(monkeypatch, platform, interpret,
-                                        want):
-    """The kernel runs where the platform is a GPU (or when a test asks for
-    the interpreter); every other platform takes the XLA shift-MAC."""
-    monkeypatch.setattr(rdev.jax, "default_backend", lambda: platform)
-    assert rdev._use_sinc_kernel(interpret) is want
+def _mixed_takes(lengths=(3 * 8192 + 77, 2 * 8192), step=128, n_fft=512):
+    """Two takes of unequal length, zero-padded into one batch, with their
+    per-frame bands: the ``restore_fused_takes`` arguments."""
+    sr, f0 = 8192, 1024.0
+    xb = np.zeros((len(lengths), max(lengths)), np.float32)
+    for i, L in enumerate(lengths):
+        t = np.arange(L) / sr
+        speed = 1.0 + 0.012 * np.sin(2 * np.pi * (1.0 + 0.7 * i) * t)
+        xb[i, :L] = np.sin(2 * np.pi * f0 * np.cumsum(speed) / sr)
+    f0_bin = int(round(f0 * n_fft / sr))
+    F = xb.shape[1] // step + 1
+    NL = jnp.full((len(lengths), F), f0_bin - 4, jnp.int32)
+    NU = jnp.full((len(lengths), F), f0_bin + 5, jnp.int32)
+    return (jnp.asarray(xb), NL, NU, n_fft, step, 1, int(step * 1.25), 16,
+            16), dict(band=(f0_bin - 6, f0_bin + 7),
+                      lengths=np.asarray(lengths))
+
+
+def test_restore_fused_takes_kernel_matches_xla():
+    """The take-batch tier with its takes flattened into the kernel's
+    segment axis (interpreted here) matches the same tier's XLA path, take by
+    take, and leaves every entry past a segment's count zero."""
+    args, kw = _mixed_takes()
+    ref = np.asarray(rdev.restore_fused_takes(*args, **kw))
+    got = np.asarray(rdev.restore_fused_takes(*args, **kw, interpret=True))
+    assert got.shape == ref.shape and got.shape[0] == 2
+    np.testing.assert_allclose(got, ref, atol=2e-5)
+    assert not np.any(got[ref == 0])
+
+
+def _lowered_for(fn, platform):
+    return jax.jit(fn).trace().lower(lowering_platforms=(platform,)).as_text()
+
+
+@pytest.mark.parametrize("tier", ["dense", "takes"])
+@pytest.mark.parametrize("platform,want", [("cuda", True), ("cpu", False)])
+def test_sinc_kernel_choice_by_platform(tier, platform, want):
+    """The kernel is chosen by the platform the program is lowered for (the
+    devices its data is on), not by the process's default backend: lowered
+    for a CUDA GPU the program holds the Triton kernel, lowered for the CPU
+    it holds only the XLA shift-MAC."""
+    if tier == "dense":
+        args, max_n, drift = _wobble_plan()
+
+        def fn():
+            return rdev.run_banded_sinc(*args, max_n, 30, drift)
+    else:
+        args, kw = _mixed_takes()
+
+        def fn():
+            return rdev.restore_fused_takes(*args, **kw)
+    assert ("sinc_banded_rows" in _lowered_for(fn, platform)) is want
 
 
 def test_round_half_even_matches_jnp_round():
